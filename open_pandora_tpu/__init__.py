@@ -1,5 +1,5 @@
-"""Open-Pandora TPU — a TPU-native (JAX/XLA/Pallas/pjit) world-model video
-generation framework with the capabilities of OpenSparseLLMs/Open-Pandora.
+"""Open-Pandora in JAX — a world-model video generation framework with the
+capabilities of OpenSparseLLMs/Open-Pandora, run on an NVIDIA GPU.
 
 Architecture (vs. reference /root/reference, see SURVEY.md):
   - frozen multimodal LLM (LLaMA-7B + CLIP ViT-L tower + DPC-KNN token
@@ -10,10 +10,10 @@ Architecture (vs. reference /root/reference, see SURVEY.md):
     encoders + DDIM) denoises 16-frame latent videos
   - up to 5 autoregressive rounds chain last frames into the next round.
 
-All compute paths are JAX: `lax.scan` DDIM with batched CFG, Pallas flash
-attention, bf16 MXU matmuls, fp32 schedules/softmax, sharding via
-`jax.sharding.Mesh` + NamedSharding (DP/ZeRO-2 as sharding specs, not a
-library).
+All compute paths are JAX: `lax.scan` DDIM with batched CFG, cuDNN fused
+attention through one dispatcher (ops/attention.py), bf16 matmuls, fp32
+schedules/softmax, sharding via `jax.sharding.Mesh` + NamedSharding
+(DP/ZeRO-2 as sharding specs, not a library).
 """
 
 __version__ = "0.1.0"

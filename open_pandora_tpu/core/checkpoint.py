@@ -60,9 +60,20 @@ def load_torch_flat(path: str) -> Dict[str, np.ndarray]:
 # -- orbax ------------------------------------------------------------------
 
 
+def _orbax():
+    """Orbax, imported on first use: only checkpoint directories need it."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError("Orbax checkpoint directories (--ckpt, saving "
+                          "checkpoints) need orbax-checkpoint, which is not "
+                          "installed") from e
+    return ocp
+
+
 def save_params(path: str, params: Any, step: Optional[int] = None):
     """Async-capable Orbax save of a params pytree."""
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     path = os.path.abspath(path)
     ckptr = ocp.StandardCheckpointer()
@@ -72,7 +83,7 @@ def save_params(path: str, params: Any, step: Optional[int] = None):
 
 
 def restore_params(path: str, like: Any = None) -> Any:
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     ckptr = ocp.StandardCheckpointer()
     if like is not None:

@@ -247,7 +247,7 @@ class SamplerConfig:
     guidance_rescale: float = 0.0
     timestep_spacing: str = "uniform_trailing"
     cfg_img: Optional[float] = None      # 3-way CFG (ddim_multiplecond.py)
-    batched_cfg: bool = True             # TPU win: stack cond/uncond -> 1 eval
+    batched_cfg: bool = True             # stack cond/uncond -> 1 eval
     fs: int = 15                         # frame-stride / fps conditioning value
 
 
@@ -400,7 +400,11 @@ def load_config(
     + `key.path=value` CLI overrides (reference: trainer.py:74-80 semantics)."""
     merged: dict = {}
     for path in yaml_paths:
-        import yaml  # lazy; pyyaml ships with the image
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError("YAML config files (--config) need PyYAML, "
+                              "which is not installed") from e
 
         with open(path) as f:
             doc = yaml.safe_load(f) or {}

@@ -5,7 +5,7 @@ The reference mixes bf16 schedule buffers (ddpm3d.py:139), fp32 DDIM recasts
 autocast regions (trainer.py:90). Here precision is a single explicit policy:
 
   - params:   storage dtype of weights
-  - compute:  matmul/conv input dtype (bf16 on MXU by default)
+  - compute:  matmul/conv input dtype (bf16 by default)
   - accum:    reductions/softmax/schedule dtype (always fp32)
 
 `golden_fp32_policy()` is the strict-parity mode used by the fp32

@@ -38,77 +38,22 @@ class FlagSpec:
 
 
 _SPECS = [
-    # -- kernel routing (trace-time; A/B gates for the measured fast paths)
-    FlagSpec("PANDORA_DISABLE_PACKED", "bool", False,
-             "Route packed-layout (B,N,H*D) Pallas attention back to the "
-             "XLA attention twin (ops/packed_attention.py)."),
-    FlagSpec("PANDORA_DISABLE_DUALCA", "bool", False,
-             "Disable the head-split dual cross-attention kernel; text+image "
-             "streams fall back to two sequential attentions "
-             "(ops/dual_cross_attention.py)."),
-    FlagSpec("PANDORA_DISABLE_FUSED", "bool", False,
-             "Master off-switch for every fused Pallas fast path (temporal "
-             "attention chain, fused GroupNorm); everything routes to the "
-             "XLA twins. Also set automatically if the eager "
-             "fused_selfcheck fails at pipeline startup."),
-    FlagSpec("PANDORA_DISABLE_FUSED_GN", "bool", False,
-             "Disable only the fused GroupNorm+SiLU Pallas path "
-             "(ops/fused_norms.py)."),
-    FlagSpec("PANDORA_DISABLE_TNATIVE", "bool", False,
-             "Disable the native-layout temporal path (stay in "
-             "(b,t,h*w,c) without the two full-stream transposes); "
-             "temporal blocks use the transpose layout instead "
-             "(models/unet3d.py)."),
+    # -- layout choices (trace-time)
     FlagSpec("PANDORA_DISABLE_TCONV_DOT", "bool", False,
-             "Use the lax.conv temporal conv instead of the shifted-dot "
-             "MXU formulation (models/unet3d.py _TConv3)."),
-    FlagSpec("PANDORA_STREAMING_GN", "bool", False,
-             "Opt-in two-pass streaming Pallas GroupNorm for oversized "
-             "slabs (measured slower in-program; recorded experiment)."),
-    # -- conv experiment gates (both kernels measured SLOWER than XLA's
-    #    conv emitter in-program — PERF.md round-4 tables; opt-in only)
-    FlagSpec("PANDORA_ENABLE_PCONV", "bool", False,
-             "Opt-in: route eligible 3x3 convs to the direct Pallas conv "
-             "v1 (out-of-kernel pad)."),
-    FlagSpec("PANDORA_ENABLE_PCONV2", "bool", False,
-             "Opt-in: route eligible fused GN+SiLU+conv+bias+residual "
-             "sites to the Pallas conv v2 (in-kernel pad)."),
-    FlagSpec("PANDORA_DISABLE_PCONV", "bool", False,
-             "Hard-off for both Pallas conv kernels regardless of the "
-             "enable flags."),
-    FlagSpec("PANDORA_PCONV_ONLY", "str", "",
-             "Comma list of HxWxCIxCO shapes: ONLY those conv sites route "
-             "to Pallas (bisection tool)."),
-    FlagSpec("PANDORA_CONV_CENSUS", "bool", False,
-             "Record every traced conv shape into ops.conv2d.CENSUS "
-             "(preflight shape harvesting)."),
-    FlagSpec("PANDORA_SPATIAL_DOT", "bool", False,
-             "Route eligible spatial 3x3 convs through the nine-shifted-"
-             "dot XLA formulation (ops/conv2d.py conv3x3_ninedot) instead "
-             "of the conv emitter — round-5 A/B gate."),
-    # -- packed-attention tuning
-    FlagSpec("PANDORA_PACKED_BLOCKQ", "int", 0,
-             "Override the VMEM-model-chosen q-block size (0 = auto)."),
-    FlagSpec("PANDORA_PACKED_FORCE_MULTI", "bool", False,
-             "Force the multi-KV-block online-softmax kernel even for "
-             "shapes the single-block kernel fits (A/B tool)."),
+             "Use the lax.conv temporal conv instead of the three shifted "
+             "t-axis matmuls (models/unet3d.py _TConv3)."),
     # -- training-graph switches
     FlagSpec("PANDORA_FINE_REMAT", "bool", False,
              "Nested per-attention/per-FF remat inside spatial transformer "
              "blocks during TRAINING (576x1024 memory relief; changes the "
              "autodiff graph, never inference)."),
     # -- process/bench controls (read at startup, not trace time)
-    FlagSpec("PANDORA_CACHE_DIR", "str", "/root/jax_cache",
-             "Persistent XLA compile-cache dir; 'off' disables."),
     FlagSpec("PANDORA_CKPT_DIR", "str", "",
              "Checkpoint directory override for pipeline entrypoints."),
     FlagSpec("PANDORA_CLIP_BPE", "str", "",
              "Path to a CLIP BPE merges file (pipeline/tokenizers.py)."),
     FlagSpec("PANDORA_BENCH_FAST", "bool", False,
              "bench.py: headline phases only (skip configs 3/4)."),
-    FlagSpec("PANDORA_BENCH_BUDGET_S", "int", 3000,
-             "bench.py: wall-clock budget; optional phases are skipped "
-             "(with an explicit *_skipped marker) when exceeded."),
 ]
 
 REGISTRY: Dict[str, FlagSpec] = {s.name: s for s in _SPECS}

@@ -1,4 +1,4 @@
-"""Name -> constructor registry: the TPU-native resolution of the
+"""Name -> constructor registry: the JAX resolution of the
 reference's `instantiate_from_config` reflection grammar.
 
 The reference builds its whole diffusion graph from yaml

@@ -8,7 +8,7 @@ conversation records with image/video sidecars) and
 `DataCollatorForSupervisedDataset` (:799) — plus `tokenizer_image_token`
 (mm_utils.py:18, split-on-<image> sentinel insertion).
 
-TPU-native reformulation: instead of ragged (input_ids, labels) consumed by
+Reformulation: instead of ragged (input_ids, labels) consumed by
 a dynamic splice, preprocessing lowers each conversation to the repo's
 static `MultimodalPrompt` segment layout (TokenSegment / ImageSegment /
 VideoSegment) plus per-token labels, padded to a fixed bucket so XLA sees
@@ -367,15 +367,12 @@ class ConversationDataset:
         elif "video" in rec:
             import os
 
-            from PIL import Image
-
             from open_pandora_tpu.pipeline.preprocess import clip_tower_preprocess
             from open_pandora_tpu.utils.video_io import read_video_frames
             frames, _ = read_video_frames(
                 os.path.join(self.video_root or "", rec["video"]),
                 num_frames=self.max_frames)
-            images = np.stack([clip_tower_preprocess(Image.fromarray(f),
-                                                     self.clip_size)
+            images = np.stack([clip_tower_preprocess(f, self.clip_size)
                                for f in frames])
         return example_from_conversation(source, self.tokenizer,
                                          images=images,

@@ -12,7 +12,7 @@ Behavioral spec: /root/reference/data/webvid.py:14-185:
     the CLIP branch
   - sample dict: image/video/caption/fps/frame_stride :180
 
-TPU-native pipeline: a thread-pool PrefetchLoader feeds fixed-shape numpy
+Pipeline: a thread-pool PrefetchLoader feeds fixed-shape numpy
 batches (per-host sharded via jax.process_index, replacing the
 rank-sharding at inference.py:276-282 / DataModuleFromConfig workers),
 with captions tokenized host-side to the fixed 77-token CLIP layout.
@@ -28,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from open_pandora_tpu.utils.video_io import (HAVE_CV2, probe_video,
+from open_pandora_tpu.utils.video_io import (probe_video,
                                              read_video_frames)
 
 log = logging.getLogger("open_pandora_tpu.data")

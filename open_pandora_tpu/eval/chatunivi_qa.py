@@ -190,8 +190,7 @@ def main(argv=None):
                     os.path.join(args.media_dir, q["video"]),
                     num_frames=args.video_frames)
                 for fr in frames:
-                    images.append(clip_tower_preprocess(Image.fromarray(fr),
-                                                        tower_size))
+                    images.append(clip_tower_preprocess(fr, tower_size))
                 segments.append(VideoSegment(tuple(range(len(images)))))
             elif q.get("image"):
                 img = Image.open(os.path.join(args.media_dir, q["image"]))

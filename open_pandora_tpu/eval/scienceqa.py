@@ -16,7 +16,7 @@ Behavioral spec:
   (TXT/IMG/NO) and grade band (G1-6/G7-12).
 
 Deviations (documented): greedy decode by default instead of
-temperature-0.2 sampling (deterministic on TPU; --temperature restores
+temperature-0.2 sampling (deterministic here; --temperature restores
 sampling), and max-new-tokens defaults sized for smoke runs.
 
 Usage:

@@ -5,7 +5,7 @@ vbench2_i2v_full_info.json, for each (image_name, prompt_en) generate
 n_samples clips (DDIM 50, ugs 7.5, fs 8) from the cropped image dir and
 write per-sample mp4s named by prompt for the external VBench scorer.
 
-TPU additions: per-host sharding of the metadata list (jax.process_index —
+Additions: per-host sharding of the metadata list (jax.process_index —
 the reference shards manually via --start_id/--end_id) and deterministic
 per-sample seeds.
 

@@ -11,14 +11,14 @@ driver /root/reference/ChatUniVi/model/arch.py:110-217:
     spatial clusters are re-clustered to 64/32/16; concat over events in
     first-frame order -> 112 * n_events tokens.
 
-TPU-first reformulation (SURVEY.md §7.2 item 2): cluster counts are static
+Reformulation (SURVEY.md §7.2 item 2): cluster counts are static
 (64/32/16, ceil(T/16)); the variable-size per-event frame groups become a
 fixed-capacity token mask (the reference's own token_mask machinery,
 cluster.py:131-149), so every shape is static under jit. Density tie-break
 noise (cluster.py:142-144, torch.rand*1e-6) is replaced by a deterministic
 index-scaled epsilon — same effect (strict ordering), reproducible.
 
-Merging uses one-hot matmuls (MXU) instead of index_add scatter.
+Merging uses one-hot matmuls instead of index_add scatter.
 """
 
 from __future__ import annotations

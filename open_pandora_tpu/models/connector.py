@@ -23,10 +23,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import ConnectorConfig, QFormerConfig
 from open_pandora_tpu.ops.attention import attention
 from open_pandora_tpu.ops.norms import layer_norm

@@ -22,10 +22,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import (CLIPTextConfig, CLIPVisionConfig,
                                           ResamplerConfig)
 from open_pandora_tpu.ops.attention import attention

@@ -20,7 +20,7 @@ set (DynamiCrafter lvdm/modules/encoders/condition.py:29-176, 384-399):
 None are used by the shipped Open-Pandora checkpoint (the live text/image
 conditioners are the OpenCLIP pair in models/encoders.py); they complete
 the encoder surface so every `target:` the reference yaml grammar can name
-has a TPU-native equivalent. Tokenization is a host concern — all text
+has a JAX equivalent. Tokenization is a host concern — all text
 encoders take token ids (`pipeline/clip_bpe.py` covers CLIP; T5 ids come
 from any sentencepiece host tokenizer).
 
@@ -34,10 +34,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import CLIPTextConfig, T5Config
 from open_pandora_tpu.models.encoders import LayerNorm, clip_preprocess
 from open_pandora_tpu.ops.attention import attention

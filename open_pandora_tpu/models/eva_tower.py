@@ -19,10 +19,10 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import CLIPTowerConfig
 from open_pandora_tpu.ops.attention_xla import mha_xla
 from open_pandora_tpu.ops.norms import layer_norm

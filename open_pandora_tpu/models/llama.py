@@ -1,4 +1,4 @@
-"""LLaMA-7B trunk — TPU-native flax implementation (prefill-oriented).
+"""LLaMA-7B trunk on the `core.nn` module layer (prefill-oriented).
 
 Behavioral spec: /root/reference/ChatUniVi/model/language_model/llama.py:12-121
 (ChatUniViLlamaForCausalLM wraps HF LlamaModel; the WorldModel calls the BARE
@@ -11,8 +11,7 @@ Token ids (reference model.py:636,848: "ugly hardcode"):
   <image> = 32000 (= vocab_size, the splice marker IMAGE_TOKEN_INDEX)
   [IMG_P] = 32001 (vocab_size + 1, the connector's learned-prefix slots)
 
-TPU-first: causal attention through ops.attention (Pallas flash for long
-prefill); the embedding table is exposed via embed() so the multimodal
+Design: causal attention through the ops.attention dispatcher; the embedding table is exposed via embed() so the multimodal
 splice can mix token embeddings with projected CLIP features
 (arch.py:219-396 equivalent) before the trunk runs.
 """
@@ -21,10 +20,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import LLaMAConfig
 from open_pandora_tpu.ops.attention import attention
 from open_pandora_tpu.ops.norms import rms_norm
@@ -116,7 +115,7 @@ class LoRADense(nn.Module):
     ChatUniVi enables it over every linear except lm_head,
     train.py:98-103,162-173, r=64 α=16). Composes with the int8 base for
     QLoRA-style finetuning. The adapter matmuls never materialize AB.
-    LoRA dropout is not applied (the TPU SFT step is deterministic)."""
+    LoRA dropout is not applied (the SFT step is deterministic)."""
 
     features: int
     rank: int

@@ -4,7 +4,7 @@ decode).
 The WorldModel conditioning path never decodes (model.py:659 uses the bare
 trunk), but the reference's ChatUniVi eval stack does
 (ChatUniVi/eval/model_video_qa.py etc. call .generate). This implements the
-decode loop TPU-style: fixed-size per-layer KV cache buffers, one jitted
+decode loop for XLA: fixed-size per-layer KV cache buffers, one jitted
 prefill + a lax.scan over decode steps.
 
 Cache layout: {layer_i: {"k": (b, max_len, h, dh), "v": ...}}; positions

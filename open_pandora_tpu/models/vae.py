@@ -1,4 +1,4 @@
-"""SD 2D autoencoder (AutoencoderKL) — TPU-native flax/NHWC implementation.
+"""SD 2D autoencoder (AutoencoderKL) — NHWC implementation on `core.nn`.
 
 Behavioral spec: /root/reference/DynamiCrafter/lvdm/models/autoencoder.py:14-130
 and lvdm/modules/networks/ae_modules.py (Encoder :364, Decoder :466,
@@ -6,15 +6,14 @@ ResnetBlock :151, AttnBlock :26, Downsample :90 with asymmetric (0,1,0,1)
 padding, Upsample :111 nearest-2x). Posterior: lvdm/distributions.py:24-65
 (logvar clamped to [-30, 20]).
 
-TPU-first differences from the reference:
-  - NHWC layout end-to-end (XLA:TPU's native conv layout; the converter
-    transposes torch OIHW kernels to HWIO)
+Differences from the reference:
+  - NHWC layout end-to-end (the converter transposes torch OIHW kernels to
+    HWIO)
   - GroupNorm statistics in fp32 via ops.norms regardless of compute dtype
   - the reference's per-frame Python loop (`perframe_ae`, ddpm3d.py:614-628)
     becomes `lax.map` over frame chunks in encode_video/decode_video —
     bounded memory, single compiled loop body
-  - the mid-block attention uses ops.attention (flash-eligible at 576x1024
-    where h*w/64 = 9216 tokens)
+  - the mid-block attention goes through the ops.attention dispatcher
 
 Module/param names mirror the torch state-dict keys (down.0.block.1.norm1
 -> down_0/block_1/norm1) so weight conversion is a mechanical rename.
@@ -25,12 +24,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import VAEConfig
 from open_pandora_tpu.ops.attention import attention
+from open_pandora_tpu.ops.norms import group_norm
 
 
 class GroupNorm(nn.Module):
@@ -43,12 +43,8 @@ class GroupNorm(nn.Module):
         c = x.shape[-1]
         scale = self.param("scale", nn.initializers.ones, (c,))
         bias = self.param("bias", nn.initializers.zeros, (c,))
-        # dispatcher: Pallas/MXU-stats fast paths for bf16 on TPU (the
-        # decoder's full-res slabs hit the same fp32 convert_reduce +
-        # broadcast cost the UNet's 5D sites did), exact XLA twin elsewhere
-        from open_pandora_tpu.ops.fused_norms import fused_group_norm_silu
-        return fused_group_norm_silu(x, scale, bias, num_groups=32,
-                                     eps=self.eps, silu=silu)
+        return group_norm(x, scale, bias, num_groups=32, eps=self.eps,
+                          silu=silu)
 
 
 def swish(x):

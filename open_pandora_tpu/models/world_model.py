@@ -12,7 +12,7 @@ Behavioral spec: /root/reference/model.py:557-981 (the LIVE second copy):
   - alignment_forward :886-923: KL(log_softmax(llm_cond) || softmax(OpenCLIP
     text embedding)), batchmean
 
-TPU-first: the reference's ragged splice becomes a STATIC segment layout
+Design: the reference's ragged splice becomes a STATIC segment layout
 (SURVEY.md §7.0): prompts are built host-side as typed segments (tokens /
 image / video / img-prefix); every shape is known at trace time, so the
 whole conditioning path jits. The dynamic ragged path is unnecessary — the
@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import jax
 import jax.numpy as jnp
 
+from open_pandora_tpu.core import nn
 from open_pandora_tpu.core.config import PandoraConfig
 from open_pandora_tpu.models.clip_tower import CLIPVisionTower
 from open_pandora_tpu.models.cluster import (project_image_tokens,
@@ -34,7 +35,6 @@ from open_pandora_tpu.models.cluster import (project_image_tokens,
 from open_pandora_tpu.models.connector import Connector
 from open_pandora_tpu.models.dynamicrafter import DynamiCrafter
 from open_pandora_tpu.models.llama import LlamaForCausalLM
-import flax.linen as nn
 
 
 # -- prompt layout ----------------------------------------------------------
@@ -120,8 +120,7 @@ class WorldModel:
         """quantize_llm: weight-only LLaMA quantization (models/quant.py) —
         True/'int8' (per-channel int8, ~12.3 GB composite) or 'nf4'
         (blockwise 4-bit, the bitsandbytes load_in_4bit analog,
-        ChatUniVi/model/builder.py:36-47). bf16 needs ~19 GB; int8 fits
-        one 16 GB chip."""
+        ChatUniVi/model/builder.py:36-47). bf16 needs ~19 GB."""
         self.cfg = cfg
         self.dtype = dtype
         self.quantize_llm = quantize_llm

@@ -1,4 +1,4 @@
-"""TPU compute kernels: Pallas fast paths + XLA reference twins.
+"""Compute ops: the attention dispatcher and the norm primitives.
 
 Replaces the reference's CUDA dependency layer (SURVEY.md §2.6):
   - xformers memory_efficient_attention  -> ops.attention (Pallas flash)

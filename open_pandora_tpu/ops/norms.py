@@ -8,9 +8,8 @@ Behavioral spec:
   - LayerNorm eps 1e-5 (torch default, transformer blocks attention.py:244)
   - RMSNorm eps 1e-6 for LLaMA (HF LlamaRMSNorm)
 
-All are channel-last: x (..., C). XLA fuses the normalize+affine+SiLU chain
-into the neighboring conv on TPU, so these stay XLA (the Pallas win on this
-path is fusing into the conv prologue, tracked as a later optimization).
+All are channel-last: x (..., C). XLA fuses the normalize+affine+SiLU
+chain into its neighbours.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ with pure sharding specs over a `jax.sharding.Mesh`:
   - rank-sharded
     inference    == jax.process_index()-based prompt slicing
 
-No backend code: XLA GSPMD inserts the ICI collectives.
+No backend code: XLA GSPMD inserts the collectives (NCCL on the GPU).
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def fsdp_param_spec(ms: MeshSpec, params, min_size: int = 2 ** 16):
     """FSDP / ZeRO-3 analog as sharding specs: every large parameter leaf
     sharded over the data axis. GSPMD inserts the all-gathers at use sites
     (forward AND backward re-gather) and reduce-scatters the gradients, so
-    per-chip param memory drops ~n_data-fold — the TPU-native equivalent of
+    per-chip param memory drops ~n_data-fold — the JAX equivalent of
     the reference's FSDP-wrapped LLM training (ChatUniVi/train/train.py:974
     fsdp + transformer_layer_cls wrap policy). Tiny leaves (norm scales,
     biases) stay replicated, like FSDP's min_num_params threshold."""

@@ -2,22 +2,22 @@
 device mesh.
 
 The reference scales inference by running independent prompts on separate
-GPUs (ddp_wrapper.py + inference.py:276-282 rank sharding). TPU-native we
+GPUs (ddp_wrapper.py + inference.py:276-282 rank sharding). Here we
 additionally shard a SINGLE synthesis call over the mesh's data axis:
 
   - UNet denoise: the batched-CFG eval has leading dim b * n_streams
     (2 for 2-way CFG, 3 for 3-way; times the clip batch). `shard_map` over
     that axis runs each guidance stream / batch entry on its own chip with
-    replicated weights — zero cross-chip communication inside the step, so
-    the Pallas flash-attention kernels run unchanged per shard (a plain
-    GSPMD sharding would force the custom calls to replicate).
+    replicated weights — zero cross-device communication inside the step,
+    so the cuDNN attention custom calls run unchanged per shard (a plain
+    GSPMD sharding could force them to replicate).
   - VAE decode: frames are independent (perframe_ae, model.py:996);
     `shard_map` over the t axis decodes 16 frames on up to 16 chips.
 
 Exactness: both paths compute bit-identical math to the unsharded versions
 (tests/test_sharded_infer.py asserts equality on the CPU mesh).
 
-Spec: SURVEY.md §2.7 SP row / §5.7 "sharding b·t over ICI".
+Spec: SURVEY.md §2.7 SP row / §5.7 (sharding b·t over devices).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def sharded_apply_model(dc, ms: MeshSpec):
 
     Drop-in for the `apply` closure inside image_guided_synthesis: divides
     the CFG-stream batch across chips; each chip evaluates the full UNet on
-    its local streams (flash kernels intact)."""
+    its local streams (attention kernels intact)."""
     axis = ms.data_axis
 
     def local(params, x, t, ctx, concat, fs):

@@ -2,19 +2,19 @@
 
 The reference has NO sequence/context parallelism (SURVEY §2.7: its answer
 to long sequences is algorithmic — clustering, factorized attention,
-per-frame VAE). This module adds the real thing as a new TPU-native
+per-frame VAE). This module adds the real thing as a new JAX
 capability: the attention sequence axis is sharded over a mesh axis, each
 device computes flash attention against its local KV shard, and KV shards
-rotate around the ring with `jax.lax.ppermute` (ICI neighbor exchange)
+rotate around the ring with `jax.lax.ppermute` (neighbor exchange)
 while partial outputs merge with online-softmax (log-sum-exp) algebra.
 Memory per device is O(seq/n) and the KV transfer overlaps compute — the
 standard blockwise-ring recipe, expressed with shard_map + collectives
 rather than hand-written RDMA.
 
 Use case: 576x1024 spatial self-attention (9216 tokens x 16 frames) sharded
-4-8 ways, or any future resolution where a single chip's attention memory
-or FLOPs bound the step. Non-causal only (UNet spatial attention is
-bidirectional)."""
+4-8 ways, or any future resolution where a single device's attention
+memory or FLOPs bound the step. Non-causal and causal (global-index masks;
+the LLaMA prefill path below)."""
 
 from __future__ import annotations
 
@@ -24,12 +24,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-
-try:  # moved out of experimental in newer jax
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 _MASKED = -1e30  # finite big-negative: a fully-masked block yields a

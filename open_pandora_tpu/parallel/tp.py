@@ -2,7 +2,7 @@
 
 New capability vs the reference (SURVEY.md §2.7: no TP exists there) —
 Megatron-style column/row partitioning of the LLaMA projections expressed
-as GSPMD sharding specs; XLA inserts the all-reduces over ICI:
+as GSPMD sharding specs; XLA inserts the all-reduces:
 
   q/k/v/gate/up kernels (in, out)  -> P(None, 'model')   (column parallel)
   o/down kernels        (in, out)  -> P('model', None)   (row parallel)

@@ -17,8 +17,8 @@ import sys
 def build_app(chat):
     import gradio as gr
 
-    with gr.Blocks(title="Open-Pandora TPU") as demo:
-        gr.Markdown("# Open-Pandora (TPU) — interactive world model")
+    with gr.Blocks(title="Open-Pandora") as demo:
+        gr.Markdown("# Open-Pandora — interactive world model")
         with gr.Row():
             image_in = gr.Image(type="pil", label="Conditioning image")
             video_out = gr.Video(label="Generated video")

@@ -39,8 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize-llm", nargs="?", const="int8",
                    choices=["int8", "nf4"], default=False,
                    help="weight-only LLaMA quantization (default int8; "
-                        "nf4 = blockwise 4-bit). int8 fits the full model "
-                        "on one 16GB chip")
+                        "nf4 = blockwise 4-bit)")
     p.add_argument("--debug", action="store_true",
                    help="tiny config + random weights smoke mode")
     return p
@@ -88,22 +87,30 @@ def build_chat(args):
         from open_pandora_tpu.core.checkpoint import load_params
         params = load_params(args.ckpt, wm, height=height, width=width)
     else:
+        from open_pandora_tpu.models.dynamicrafter import random_params
         print("[cli] NO CHECKPOINT — random weights (smoke mode)", flush=True)
-        params = jax.jit(lambda: jax.tree_util.tree_map(
-            lambda p: p.astype(dtype) if p.dtype == jnp.float32 else p,
-            wm.init_params(jax.random.PRNGKey(0), height=height,
-                           width=width)))()
+        params = random_params(wm, 0, dtype)
 
     return ChatWM(wm, params, tokenizer=load_tokenizer(args.tokenizer),
                   height=height, width=width)
 
 
+def read_image(path: str):
+    """uint8 (H, W, 3) RGB array from an image file (needs Pillow)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("reading --image needs Pillow (PIL), which is "
+                          "not installed") from e
+    import numpy as np
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from PIL import Image
-
     chat = build_chat(args)
-    img = Image.open(args.image)
+    img = read_image(args.image)
     frames = chat.generate_video_multiround(
         img, args.action, ddim_steps=args.ddim_steps,
         guidance_scale=args.ugs, eta=args.eta, fs=args.fs, seed=args.seed)

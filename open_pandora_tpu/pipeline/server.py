@@ -21,11 +21,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
 PAGE = """<!doctype html>
-<html><head><title>Open-Pandora TPU</title><style>
+<html><head><title>Open-Pandora</title><style>
 body{font-family:sans-serif;max-width:720px;margin:2em auto}
 label{display:block;margin-top:.6em}input,textarea{width:100%%}
 button{margin-top:1em;padding:.5em 2em}</style></head><body>
-<h2>Open-Pandora TPU &mdash; interactive world model</h2>
+<h2>Open-Pandora &mdash; interactive world model</h2>
 <form method="post" action="/generate" enctype="multipart/form-data">
 <label>Conditioning image <input type="file" name="image" required></label>
 <label>Actions (one per round, up to 5 lines)
@@ -131,7 +131,7 @@ def chatwm_generate_fn(chat, fps: int = 8) -> Callable:
     def generate(image_bytes: bytes, actions, *, ddim_steps: int = 50,
                  ugs: float = 4.0, eta: float = 1.0, fs: int = 15,
                  seed: int = 123) -> bytes:
-        with lock:  # one TPU, one session at a time
+        with lock:  # one device, one session at a time
             img = Image.open(io.BytesIO(image_bytes))
             frames = chat.generate_video_multiround(
                 img, list(actions), ddim_steps=ddim_steps,

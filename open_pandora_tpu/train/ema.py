@@ -3,7 +3,7 @@
 The reference keeps torch-buffer shadow copies with decay 0.9999 and a
 warmup ramp `min(decay, (1 + updates) / (10 + updates))`; shipped configs
 have `use_ema: False` but the capability is part of the DynamiCrafter
-training surface (ddpm3d.py ema_scope). TPU-native form: the shadow tree
+training surface (ddpm3d.py ema_scope). JAX form: the shadow tree
 is an extra field on the TrainState, updated functionally inside the
 jitted step — no buffers, no copy-to/restore context manager needed
 (sampling with EMA weights is just passing `state.ema`)."""

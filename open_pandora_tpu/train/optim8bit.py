@@ -1,14 +1,13 @@
 """Blockwise 8-bit AdamW — optimizer-state quantization for HBM-bound
-training (the TPU-native analog of bitsandbytes' 8-bit optimizers, which
+training (the JAX analog of bitsandbytes' 8-bit optimizers, which
 the reference ecosystem uses for exactly this, SURVEY §2.6 bitsandbytes
 row; ChatUniVi/train/train.py:869-884 quantized-training options).
 
 Both Adam moments are stored as int8 with one fp32 absmax scale per
 `block_size` elements (dynamic blockwise quantization). The update
 dequantizes, runs standard AdamW math in fp32, and requantizes — all
-inside the jitted step, so peak HBM for optimizer state drops 4x vs bf16
-moments (for the 1.4B-param UNet: 5.7 GB -> 1.45 GB), which is what lets
-the 576x1024x16f single-chip finetune step fit a 16 GB chip.
+inside the jitted step, so optimizer-state memory drops 4x vs bf16
+moments (for the 1.4B-param UNet: 5.7 GB -> 1.45 GB).
 
 API-compatible with optax: `adamw8bit(...)` is a GradientTransformation
 usable anywhere `optax.adamw` is.
@@ -112,7 +111,7 @@ def scale_by_adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         nu_leaves = treedef.flatten_up_to(state.nu)
         new_u, new_mu, new_nu = [], [], []
         # chain in BYTE-BUDGETED groups: full serial chaining over ~500
-        # leaves made the TPU compiler segfault; every leaf in group k+1
+        # leaves crashed the compiler; every leaf in group k+1
         # depends on ALL of group k (via the summed token), bounding
         # concurrent fp32 temps to ~2 groups while keeping the graph
         # shallow. The budget is on bytes, not leaf count — a fixed

@@ -13,17 +13,21 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-try:
-    import cv2
-    HAVE_CV2 = True
-except ImportError:  # pragma: no cover
-    HAVE_CV2 = False
+
+def _cv2():
+    """OpenCV, imported on first use: only video files need it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("reading or writing video files needs OpenCV "
+                          "(cv2), which is not installed") from e
+    return cv2
 
 
 def write_video(path: str, frames: np.ndarray, fps: int = 8) -> str:
     """frames (t, h, w, 3) uint8 RGB -> mp4. Tries h264 (avc1) first,
     falls back to mp4v (model.py:1197: torchvision h264 equivalent)."""
-    assert HAVE_CV2, "OpenCV unavailable — cannot write video"
+    cv2 = _cv2()
     t, h, w, _ = frames.shape
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     for codec in ("avc1", "mp4v"):
@@ -46,7 +50,7 @@ def read_video_frames(
     """Decode RGB frames. Either explicit `indices` or `num_frames`
     uniformly-sampled (the decord usage at ChatUniVi/model/dataloader.py:9
     and data/webvid.py:112-131). Returns (frames (t,h,w,3) uint8, fps)."""
-    assert HAVE_CV2, "OpenCV unavailable — cannot read video"
+    cv2 = _cv2()
     cap = cv2.VideoCapture(path)
     if not cap.isOpened():
         raise IOError(f"cannot open video {path}")
@@ -81,7 +85,7 @@ def probe_video(path: str) -> Tuple[int, float]:
     """Single-open probe: verify the first frame decodes and return
     (frame_count, fps). Replaces the reference's decode-then-reopen probe
     (data/webvid.py:104-131) with one demuxer open."""
-    assert HAVE_CV2, "OpenCV unavailable — cannot read video"
+    cv2 = _cv2()
     cap = cv2.VideoCapture(path)
     try:
         if not cap.isOpened():

@@ -13,6 +13,9 @@ Schema subset (tsl/profiler/protobuf/xplane.proto):
   XLine.events = 4 (repeated XEvent)
   XEvent.metadata_id = 1, .duration_ps = 3 (or num_occurrences packing)
 
+GPU device planes are named "/device:GPU:<n>" (DEVICE_PLANE); host
+threads live in "/host:CPU".
+
 Usage:
     from open_pandora_tpu.utils.xplane import profile_op_totals
     totals = profile_op_totals(fn, *args)   # {op_name: ms}, one device step
@@ -23,6 +26,8 @@ from __future__ import annotations
 import struct
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
+
+DEVICE_PLANE = "/device:GPU"
 
 
 def _fields(buf: bytes) -> Iterator[Tuple[int, int, object]]:
@@ -122,7 +127,7 @@ def parse_xspace(data: bytes) -> List[Dict]:
     return planes
 
 
-def op_totals_from_file(path: str, plane_filter: str = "TPU",
+def op_totals_from_file(path: str, plane_filter: str = DEVICE_PLANE,
                         line_filter: str = "",
                         ) -> Dict[str, float]:
     """Aggregate event duration (ms) by op name over device-plane lines
@@ -144,7 +149,7 @@ def op_totals_from_file(path: str, plane_filter: str = "TPU",
     return dict(totals)
 
 
-def op_events_from_file(path: str, plane_filter: str = "TPU",
+def op_events_from_file(path: str, plane_filter: str = DEVICE_PLANE,
                         line_filter: str = "",
                         ) -> List[Tuple[str, float, float]]:
     """Flat [(op_name, offset_ms, duration_ms)] over matching lines —
@@ -184,7 +189,7 @@ def find_xplane_files(logdir: str) -> List[str]:
 
 
 def profile_op_totals(fn, *args, warmup: int = 1, iters: int = 1,
-                      plane_filter: str = "TPU", line_filter: str = "",
+                      plane_filter: str = DEVICE_PLANE, line_filter: str = "",
                       logdir: str = None) -> Dict[str, float]:
     """Trace `fn(*args)` with jax.profiler and return {op_name: total_ms}
     across `iters` calls on the device plane."""

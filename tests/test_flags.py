@@ -1,5 +1,4 @@
-"""core/flags.py — the single PANDORA_* knob registry (round-4 verdict #5:
-env-knob sprawl controlled numerics/routing with no source of truth)."""
+"""core/flags.py — the single PANDORA_* knob registry."""
 
 import os
 
@@ -9,26 +8,26 @@ from open_pandora_tpu.core import flags
 
 
 def test_defaults():
-    assert flags.flag("PANDORA_DISABLE_PACKED") is False
-    assert flags.flag("PANDORA_PACKED_BLOCKQ") == 0
-    assert flags.flag("PANDORA_PCONV_ONLY") == ""
+    assert flags.flag("PANDORA_DISABLE_TCONV_DOT") is False
+    assert flags.flag("PANDORA_FINE_REMAT") is False
+    assert flags.flag("PANDORA_CLIP_BPE") == ""
 
 
 def test_env_override(monkeypatch):
-    monkeypatch.setenv("PANDORA_DISABLE_PACKED", "1")
-    assert flags.flag("PANDORA_DISABLE_PACKED") is True
-    monkeypatch.setenv("PANDORA_DISABLE_PACKED", "0")
-    assert flags.flag("PANDORA_DISABLE_PACKED") is False
-    monkeypatch.setenv("PANDORA_PACKED_BLOCKQ", "256")
-    assert flags.flag("PANDORA_PACKED_BLOCKQ") == 256
+    monkeypatch.setenv("PANDORA_DISABLE_TCONV_DOT", "1")
+    assert flags.flag("PANDORA_DISABLE_TCONV_DOT") is True
+    monkeypatch.setenv("PANDORA_DISABLE_TCONV_DOT", "0")
+    assert flags.flag("PANDORA_DISABLE_TCONV_DOT") is False
+    monkeypatch.setenv("PANDORA_CKPT_DIR", "/ckpt")
+    assert flags.flag("PANDORA_CKPT_DIR") == "/ckpt"
 
 
 def test_programmatic_override_beats_env(monkeypatch):
-    monkeypatch.setenv("PANDORA_DISABLE_FUSED", "")
-    with flags.overridden(DISABLE_FUSED=True):
-        assert flags.flag("PANDORA_DISABLE_FUSED") is True
-        assert flags.snapshot() == {"PANDORA_DISABLE_FUSED": True}
-    assert flags.flag("PANDORA_DISABLE_FUSED") is False
+    monkeypatch.setenv("PANDORA_FINE_REMAT", "")
+    with flags.overridden(FINE_REMAT=True):
+        assert flags.flag("PANDORA_FINE_REMAT") is True
+        assert flags.snapshot() == {"PANDORA_FINE_REMAT": True}
+    assert flags.flag("PANDORA_FINE_REMAT") is False
 
 
 def test_undeclared_flag_rejected():
@@ -39,9 +38,9 @@ def test_undeclared_flag_rejected():
 
 
 def test_snapshot_reflects_env(monkeypatch):
-    monkeypatch.setenv("PANDORA_STREAMING_GN", "1")
+    monkeypatch.setenv("PANDORA_DISABLE_TCONV_DOT", "1")
     snap = flags.snapshot()
-    assert snap.get("PANDORA_STREAMING_GN") is True
+    assert snap.get("PANDORA_DISABLE_TCONV_DOT") is True
 
 
 def test_table_covers_registry():

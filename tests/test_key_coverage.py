@@ -17,7 +17,7 @@ replicas from ``test_ref_parity``) at the released structure but tiny widths,
 then asserts:
 
   (a) ``core.convert.convert_world_model`` READS every key, except an
-      explicit allowlist of keys the TPU framework derives from config or
+      explicit allowlist of keys this framework derives from config or
       that the reference architecture itself never uses (each documented
       below), and
   (b) the converted pytree has exactly the leaf set (paths AND shapes) of

@@ -41,10 +41,15 @@ def test_find_latest_checkpoint(tmp_path):
     assert latest.endswith("step_200")
 
 
-def test_cache_hook_env_off(monkeypatch):
+def test_cache_hook_env_off(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set the hook leaves the directory to
+    JAX and returns it."""
+    import jax
     from open_pandora_tpu.core.cache import enable_compilation_cache
-    monkeypatch.setenv("PANDORA_CACHE_DIR", "off")
-    enable_compilation_cache()  # no-op, no crash
-    monkeypatch.setenv("PANDORA_CACHE_DIR", "/tmp/pandora_cache_test")
-    enable_compilation_cache()
-    assert os.path.isdir("/tmp/pandora_cache_test")
+    saved = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    try:
+        assert enable_compilation_cache() == str(tmp_path / "c")
+        assert jax.config.jax_compilation_cache_dir == saved
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved)

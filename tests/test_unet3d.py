@@ -66,13 +66,13 @@ def test_timestep_and_fs_sensitivity(unet_and_params):
     (reference zero_module semantics), so perturb those kernels; the output
     must then depend on t — checks the conditioning plumbing end-to-end."""
     model, params = unet_and_params
-    import flax
-    flat = flax.traverse_util.flatten_dict(params["params"])
+    from open_pandora_tpu.core import nn
+    flat = nn.flatten_dict(params["params"])
     for key in list(flat):
         # un-zero every zero-init kernel (out convs, proj_outs)
         if key[-1] == "kernel" and float(jnp.abs(flat[key]).sum()) == 0.0:
             flat[key] = jnp.full_like(flat[key], 0.01)
-    p = {"params": flax.traverse_util.unflatten_dict(flat)}
+    p = {"params": nn.unflatten_dict(flat)}
     x = jax.random.normal(jax.random.PRNGKey(1), (B, T, H, W, 8))
     ctx = jax.random.normal(jax.random.PRNGKey(2), (B, 7 + T * 2, 64))
     y_t0 = model.apply(p, x, jnp.array([0]), ctx)

@@ -41,7 +41,7 @@ def _make_xspace():
     line_ops = _field(2, b"XLA Ops") + _field(4, ev1) + _field(4, ev2)
     line_async = _field(2, b"Async XLA Ops") + _field(4, ev3)
     # XPlane {name=2, lines=3, event_metadata=4}
-    plane = (_field(2, b"/device:TPU:0") + _field(3, line_ops)
+    plane = (_field(2, b"/device:GPU:0") + _field(3, line_ops)
              + _field(3, line_async) + _field(4, entry7) + _field(4, entry9))
     host = _field(2, b"/host:CPU") + _field(3, _field(2, b"python"))
     return _field(1, plane) + _field(1, host)
@@ -52,7 +52,7 @@ def test_parse_and_aggregate(tmp_path):
     p.write_bytes(_make_xspace())
 
     planes = parse_xspace(p.read_bytes())
-    assert [pl["name"] for pl in planes] == ["/device:TPU:0", "/host:CPU"]
+    assert [pl["name"] for pl in planes] == ["/device:GPU:0", "/host:CPU"]
     assert planes[0]["meta"][7] == "%fusion.1 = add"
 
     tot = op_totals_from_file(str(p))
